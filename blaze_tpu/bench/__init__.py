@@ -2,7 +2,6 @@ from .profile import (
     KernelStats,
     SOL_TABLE,
     bench_kernel,
-    field_mul_traffic_bytes,
     scaling_efficiency,
     speed_of_light,
 )
@@ -11,7 +10,6 @@ __all__ = [
     "KernelStats",
     "SOL_TABLE",
     "bench_kernel",
-    "field_mul_traffic_bytes",
     "scaling_efficiency",
     "speed_of_light",
 ]

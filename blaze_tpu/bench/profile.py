@@ -3,14 +3,13 @@
 The reference exposes hardware perf counters (per-phase total/busy clocks,
 FIFO occupancy — `/root/reference/src/ingo_msm/msm_hw_code.rs:35-54`) and a
 criterion harness that times the kernel loop only
-(`/root/reference/benches/ntt_bench.rs:33-42`, sample_size=10).  The TPU
+(`reference/benches/ntt_bench.rs:33-42`, sample_size=10).  The
 analog here:
 
   * `bench_kernel` — compile once, then min/median over N timed reps of a
     jitted callable (criterion's sample loop);
-  * `speed_of_light` — % of the chip's HBM bandwidth (the binding resource
-    for fused limb arithmetic: measured on v5e, a batched 381-bit Montgomery
-    mul runs at memory speed) achieved by a kernel given its byte traffic;
+  * `speed_of_light` — the card's published peaks, keyed by
+    `jax.Device.device_kind`; a device missing from the table is an error;
   * `scaling_efficiency` — throughput(N devices) / (N * throughput(1)).
 """
 from __future__ import annotations
@@ -22,58 +21,50 @@ from typing import Callable, Sequence
 
 import jax
 
-from ..utils.misc import hard_sync
 
-
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class SpeedOfLight:
-    """Per-chip resource limits used for attainment accounting."""
+    """Published per-card peaks, the denominators of roofline shares."""
 
     hbm_gbps: float          # HBM bandwidth, GB/s
-    bf16_tflops: float       # MXU peak (context; limb code doesn't use it)
-    vmem_mib: float
+    bf16_tflops: float       # dense tensor-core peak (limb code uses none)
+    int8_tops: float         # dense tensor-core peak
+    fp32_tflops: float       # non-tensor-core float32 peak
+    source: str
 
 
-# Public figures for the TPU generations we may land on; conservative where
-# ranges are published.  Key is `jax.Device.device_kind`.
+# Key is `jax.Device.device_kind`.
 SOL_TABLE: dict[str, SpeedOfLight] = {
-    "TPU v5 lite": SpeedOfLight(hbm_gbps=819.0, bf16_tflops=197.0, vmem_mib=128.0),
-    "TPU v5e": SpeedOfLight(hbm_gbps=819.0, bf16_tflops=197.0, vmem_mib=128.0),
-    "TPU v5p": SpeedOfLight(hbm_gbps=2765.0, bf16_tflops=459.0, vmem_mib=128.0),
-    "TPU v4": SpeedOfLight(hbm_gbps=1228.0, bf16_tflops=275.0, vmem_mib=128.0),
-    "TPU v6 lite": SpeedOfLight(hbm_gbps=1640.0, bf16_tflops=918.0, vmem_mib=128.0),
-    "cpu": SpeedOfLight(hbm_gbps=20.0, bf16_tflops=0.1, vmem_mib=0.0),
+    "NVIDIA H100 80GB HBM3": SpeedOfLight(
+        hbm_gbps=3350.0, bf16_tflops=989.0, int8_tops=1979.0,
+        fp32_tflops=67.0,
+        source="NVIDIA H100 data sheet, SXM5, dense, at the 700 W limit",
+    ),
 }
 
 
 @dataclasses.dataclass
 class KernelStats:
-    """One benchmarked kernel: times + optional speed-of-light attainment."""
+    """One benchmarked kernel's times."""
 
     name: str
     compile_s: float
     best_s: float
     median_s: float
     reps: int
-    bytes_accessed: int | None = None
-    sol_fraction: float | None = None  # achieved / speed-of-light (HBM)
 
     def summary(self) -> str:
-        s = (f"{self.name}: best {self.best_s * 1e3:.3f} ms "
-             f"(median {self.median_s * 1e3:.3f} ms, compile {self.compile_s:.1f} s)")
-        if self.sol_fraction is not None:
-            s += f", {100 * self.sol_fraction:.1f}% of HBM speed-of-light"
-        return s
-
-
-def _device_kind() -> str:
-    d = jax.devices()[0]
-    return d.device_kind if d.platform == "tpu" else "cpu"
+        return (f"{self.name}: best {self.best_s * 1e3:.3f} ms "
+                f"(median {self.median_s * 1e3:.3f} ms, "
+                f"compile {self.compile_s:.1f} s)")
 
 
 def speed_of_light(kind: str | None = None) -> SpeedOfLight:
-    kind = kind or _device_kind()
-    return SOL_TABLE.get(kind, SOL_TABLE["cpu"])
+    """Peaks of `kind` (default: the first JAX device's kind)."""
+    kind = kind or jax.devices()[0].device_kind
+    if kind not in SOL_TABLE:
+        raise KeyError(f"no published peaks for device kind {kind!r}")
+    return SOL_TABLE[kind]
 
 
 def bench_kernel(
@@ -81,51 +72,36 @@ def bench_kernel(
     args: Sequence,
     name: str = "kernel",
     reps: int = 10,
-    bytes_accessed: int | None = None,
 ) -> KernelStats:
     """Time a (jitted) callable: one warm-up (compile), then `reps` runs.
 
-    Mirrors the criterion loop (ntt_bench.rs:33-42) with sample_size=reps;
-    `bytes_accessed` enables HBM speed-of-light attainment.
+    Mirrors the criterion loop (ntt_bench.rs:33-42) with sample_size=reps.
     """
     t0 = time.perf_counter()
     out = fn(*args)
-    hard_sync(out)
+    jax.block_until_ready(out)
     compile_s = time.perf_counter() - t0
 
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         out = fn(*args)
-        hard_sync(out)
+        jax.block_until_ready(out)
         times.append(time.perf_counter() - t0)
 
-    best = min(times)
-    sol = None
-    if bytes_accessed is not None:
-        limit = speed_of_light().hbm_gbps * 1e9
-        sol = (bytes_accessed / best) / limit
     return KernelStats(
         name=name,
         compile_s=compile_s,
-        best_s=best,
+        best_s=min(times),
         median_s=statistics.median(times),
         reps=reps,
-        bytes_accessed=bytes_accessed,
-        sol_fraction=sol,
     )
-
-
-def field_mul_traffic_bytes(batch: int, nlimbs: int) -> int:
-    """Minimum HBM traffic of a fused batched field mul: read a, b; write
-    out — 3 arrays of uint32 limbs (intermediates stay on-chip)."""
-    return 3 * batch * nlimbs * 4
 
 
 def scaling_efficiency(throughput_by_n: dict[int, float]) -> dict[int, float]:
     """{n_devices: throughput} -> {n_devices: efficiency vs linear}.
 
-    The BASELINE.md target is >= 0.8 at every measured width."""
+    Read against linear scaling (1.0) at every measured width."""
     if 1 not in throughput_by_n:
         raise ValueError("need the 1-device throughput as the reference")
     t1 = throughput_by_n[1]

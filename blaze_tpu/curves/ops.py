@@ -2,7 +2,7 @@
 
 Complete homogeneous-projective formulas from Renes-Costello-Batina 2016
 (algorithms 7/8/9 for j-invariant 0): a single code path handles doubling,
-inverses and the identity — exactly what a traced/vectorized TPU program
+inverses and the identity — exactly what a traced/vectorized device program
 needs.  Points are `uint32[..., 3, L]` (X, Y, Z limb rows, Montgomery form);
 identity is (0 : 1 : 0).
 

@@ -3,7 +3,7 @@
 
 All are short-Weierstrass y^2 = x^3 + b with a = 0, which admits the
 branchless *complete* projective formulas (Renes-Costello-Batina 2016)
-used by the TPU kernels — no data-dependent control flow.
+used by the batched device code — no data-dependent control flow.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ class CurveSpec:
     b: int         # curve constant in y^2 = x^3 + b
     gx: int        # generator (affine)
     gy: int
+    cofactor: int = 1  # #E(Fq) / r: points outside the r-order subgroup exist
 
     @property
     def point_bytes(self) -> int:
@@ -60,6 +61,7 @@ BLS12_381 = CurveSpec(
     b=4,
     gx=3685416753713387016781088315183077757961620795782546409894578378688607592378376318836054947676345821548104185464507,
     gy=1339506544944476473020471379941921221584933875938349620426543736416511423956333506472724655353366534992391756441569,
+    cofactor=0x396C8C005555E1568C00AAAB0000AAAB,
 )
 
 BLS12_377 = CurveSpec(
@@ -69,6 +71,7 @@ BLS12_377 = CurveSpec(
     b=1,
     gx=81937999373150964239938255573465948239988671502647976594219695644855304257327692006745978603320413799295628339695,
     gy=241266749859715473739788878240585681733927191168601896383759122102112907357779751001206799952863815012735208165030,
+    cofactor=0x170B5D44300000000000000000000000,
 )
 
 CURVES = {c.name: c for c in [BN254, BLS12_381, BLS12_377]}

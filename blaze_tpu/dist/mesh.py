@@ -3,7 +3,8 @@ unimplemented (`/root/reference/README.md:20-22`: connection pooling and
 multi-card state machines are 'for the management layer').
 
 Here one `jax.sharding.Mesh` replaces the per-slot DriverClient connection;
-XLA collectives over ICI/DCN replace the PCIe DMA transport.
+XLA collectives over the device interconnect (NVLink between the GPUs of
+one host) replace the PCIe DMA transport.
 """
 from __future__ import annotations
 

@@ -43,56 +43,10 @@ class DistributedMSM:
             d = gathered.shape[0]
         return gathered[0]
 
-    @functools.partial(jax.jit, static_argnums=(0, 3, 4, 5))
-    def _run(self, points, scalars, c: int, scalar_bits=None, fused=False):
+    @functools.partial(jax.jit, static_argnums=(0, 3, 4))
+    def _run(self, points, scalars, c: int, scalar_bits=None):
         def local(pts, scal):
-            if fused:
-                # Per-shard chunked fused-kernel path: the same Pallas
-                # scan/reduce kernels as single-chip MSM (msm/pippenger.py
-                # _fused_chunk), so multi-chip throughput scales from the
-                # fast local baseline, not the portable one.  Chunks ride
-                # ONE lax.scan instance (not a Python unroll): the graph
-                # holds one chunk's kernels regardless of per-shard size,
-                # keeping compile time and transient liveness flat — the
-                # single-chip path gets the same effect by re-dispatching
-                # one compiled kernel per chunk from Python, which is not
-                # possible inside a shard_map body.
-                from ..msm.pippenger import _vary_like
-
-                n = pts.shape[0]
-                chunk = 1 << self.engine.config.chunk_log2
-                if n <= chunk:
-                    wsums = self.engine._fused_chunk(pts, scal, c,
-                                                     scalar_bits)
-                elif n % chunk == 0:
-                    gp = pts.reshape(n // chunk, chunk, *pts.shape[1:])
-                    gs = scal.reshape(n // chunk, chunk, *scal.shape[1:])
-                    nwin = -(-(scalar_bits or self.curve.spec.fr.bits) // c)
-                    L = self.curve.nlimbs
-                    ident = _vary_like(
-                        jnp.broadcast_to(self.curve.identity(),
-                                         (nwin, 3, L)),
-                        pts,
-                    )
-
-                    def body(acc, xs):
-                        p, s = xs
-                        part = self.engine._fused_chunk(p, s, c, scalar_bits)
-                        return self.curve.add(acc, part), None
-
-                    wsums, _ = jax.lax.scan(body, ident, (gp, gs))
-                else:
-                    wsums = None
-                    for lo in range(0, n, chunk):
-                        hi = min(lo + chunk, n)
-                        part = self.engine._fused_chunk(
-                            pts[lo:hi], scal[lo:hi], c, scalar_bits
-                        )
-                        wsums = part if wsums is None else self.curve.add(
-                            wsums, part
-                        )
-            else:
-                wsums = self.engine.msm_chunk(pts, scal, c, scalar_bits)
+            wsums = self.engine.msm_chunk(pts, scal, c, scalar_bits)
             gathered = jax.lax.all_gather(wsums, self.axis)      # (D, W, 3, L)
             total = self._reduce_wsums(gathered)
             return self.engine.fold_windows(total, c)            # (3, L)
@@ -123,12 +77,4 @@ class DistributedMSM:
         sharding = NamedSharding(self.mesh, P(self.axis))
         pts = jax.device_put(points_aff_mont, sharding)
         scal = jax.device_put(scalars, sharding)
-        from ..fields.mxu import portable_only
-
-        if self.mesh.devices.flat[0].platform != "tpu":
-            # trace-time kernel gating must match the mesh's platform, not
-            # the default backend (virtual CPU meshes under a TPU default)
-            with portable_only():
-                return self._run(pts, scal, c, scalar_bits, False)
-        return self._run(pts, scal, c, scalar_bits,
-                         self.engine.config.fused_active())
+        return self._run(pts, scal, c, scalar_bits)

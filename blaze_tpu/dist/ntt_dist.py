@@ -1,10 +1,10 @@
 """Sharded four-step NTT: local sub-NTTs + all_to_all stage exchange.
 
-This is the TPU-native replacement for the reference's 16-HBM-bank
-scatter/gather shuffle (`/root/reference/src/ingo_ntt/ntt_data.rs:80-156`)
-— a *within-card, host-CPU* all-to-all.  Here the coefficient matrix is
-sharded over a mesh axis and the inter-stage transpose is a real
-`jax.lax.all_to_all` riding ICI (DCN across hosts).
+This replaces the reference's 16-HBM-bank scatter/gather shuffle
+(`reference/src/ingo_ntt/ntt_data.rs:80-156`) — a *within-card,
+host-CPU* all-to-all.  Here the coefficient matrix is sharded over a mesh
+axis and the inter-stage transpose is a real `jax.lax.all_to_all` over
+the device interconnect (NVLink between the GPUs of one host).
 
 Decomposition (n = n1 * n2, A[i1][i2] = a[i1*n2 + i2]):
   1. column NTTs (size n1) — shard over i2, local;
@@ -45,9 +45,18 @@ class DistributedNTT:
             )
         self.plan1 = NTTPlan(spec, self.logn1)
         self.plan2 = NTTPlan(spec, self.logn2)
-        w = spec.root_of_unity(logn)
-        self._tw = self._twiddle_matrix(w)          # (n1, n2, L) u16 sharded
-        self._tw_inv = self._twiddle_matrix(pow(w, -1, spec.p))
+        self.w = spec.root_of_unity(logn)
+
+    # built on first use: forward-only callers never compile or hold the
+    # inverse matrix
+    @functools.cached_property
+    def _tw(self):
+        """(n1, n2, L) u16 forward twiddles, sharded over the axis."""
+        return self._twiddle_matrix(self.w)
+
+    @functools.cached_property
+    def _tw_inv(self):
+        return self._twiddle_matrix(pow(self.w, -1, self.spec.p))
 
     def _twiddle_matrix(self, w):
         """W^(i*j), Montgomery, uint16-compressed, generated SHARDED.
@@ -87,20 +96,27 @@ class DistributedNTT:
         wj_dev = jax.device_put(
             jnp.asarray(wj), NamedSharding(self.mesh, P(self.axis))
         )
-        if self.mesh.devices.flat[0].platform != "tpu":
-            from ..fields.mxu import portable_only
-
-            with portable_only():
-                return gen(wj_dev)
         return gen(wj_dev)
 
+    # the sub-plans' tables, replicated over the mesh once
+    @functools.cached_property
+    def _fwd_tables(self):
+        return jax.device_put((self.plan1.fwd_tables, self.plan2.fwd_tables),
+                              NamedSharding(self.mesh, P()))
+
+    @functools.cached_property
+    def _inv_tables(self):
+        return jax.device_put((self.plan1.inv_tables, self.plan2.inv_tables),
+                              NamedSharding(self.mesh, P()))
+
     # ---------------------------------------------------------------- fwd
-    def _local_fwd(self, a, tw):
-        """a: (n1, n2/D, L) — this device's column shard (i2 range)."""
+    def _local_fwd(self, a, tw, t1, t2):
+        """a: (n1, n2/D, L) — this device's column shard (i2 range);
+        t1, t2: the sub-plans' tables."""
         f = self.field
         # 1. column NTTs over i1 (axis 0): move to -2 for the plan
         a = jnp.swapaxes(a, 0, 1)                   # (n2/D, n1, L)
-        a = self.plan1._fwd(a)
+        a = self.plan1._fwd(a, *t1)
         a = jnp.swapaxes(a, 0, 1)                   # (n1, n2/D, L) — now k1
         # 2. twiddle (sharded operand has matching i2 slice)
         a = f.mul(a, tw)
@@ -110,65 +126,57 @@ class DistributedNTT:
             a, self.axis, split_axis=0, concat_axis=1, tiled=True
         )                                            # (n1/D, n2, L)
         # 4. row NTTs over i2
-        a = self.plan2._fwd(a)                       # (n1/D, n2, L) — k2
+        a = self.plan2._fwd(a, *t2)                  # (n1/D, n2, L) — k2
         return a
 
-    @functools.partial(jax.jit, static_argnums=(0, 2))
-    def _run(self, x, inverse: bool):
+    @functools.partial(jax.jit, static_argnums=(0, 4))
+    def _run(self, x, tw, tables, inverse: bool):
+        """tw: the sharded u16 twiddles; tables: the sub-plans' replicated
+        tables.  Both are arguments (jit would compile a closed-over array
+        into the executable)."""
         f = self.field
-        n1, n2, L = self.n1, self.n2, self.spec.nlimbs
-        tw = self._tw_inv if inverse else self._tw   # u16, sharded
 
-        def fwd_local(a, twl):
+        def fwd_local(a, twl, tabs):
             # decompress per-shard so the u32 twiddle temp never exceeds
             # one device's block
-            return self._local_fwd(a, twl.astype(jnp.uint32))
+            return self._local_fwd(a, twl.astype(jnp.uint32), *tabs)
 
-        def inv_local(x_k, twl):
+        def inv_local(x_k, twl, tabs):
+            t1, t2 = tabs
             # x_k: (n1/D, n2, L) k1-sharded spectral data
-            a = self.plan2._inv(x_k)                 # undo row NTTs
+            a = self.plan2._inv(x_k, *t2)            # undo row NTTs
             a = jax.lax.all_to_all(
                 a, self.axis, split_axis=1, concat_axis=0, tiled=True
             )                                        # (n1, n2/D, L) i2-shard
             a = f.mul(a, twl.astype(jnp.uint32))
             a = jnp.swapaxes(a, 0, 1)
-            a = self.plan1._inv(a)
+            a = self.plan1._inv(a, *t1)
             return jnp.swapaxes(a, 0, 1)             # (n1, n2/D, L)
 
         if inverse:
             fn = jax.shard_map(
                 inv_local, mesh=self.mesh,
-                in_specs=(P(self.axis), P(None, self.axis)),
+                in_specs=(P(self.axis), P(None, self.axis), P()),
                 out_specs=P(None, self.axis),
             )
-            return fn(x, tw)
+            return fn(x, tw, tables)
         fn = jax.shard_map(
             fwd_local, mesh=self.mesh,
-            in_specs=(P(None, self.axis), P(None, self.axis)),
+            in_specs=(P(None, self.axis), P(None, self.axis), P()),
             out_specs=P(self.axis),
         )
-        return fn(x, tw)
-
-    def _run_for_mesh(self, x, inverse: bool):
-        """Trace with kernel gating matched to the mesh's platform (not the
-        default backend — virtual CPU meshes under a TPU default)."""
-        from ..fields.mxu import portable_only
-
-        if self.mesh.devices.flat[0].platform != "tpu":
-            with portable_only():
-                return self._run(x, inverse)
-        return self._run(x, inverse)
+        return fn(x, tw, tables)
 
     # ------------------------------------------------------------- public
     def ntt(self, x):
         """x: (n, L) Montgomery, natural order -> spectral (n1-major
         (k1, k2) matrix, k1-sharded): X[k1 + n1*k2] = out[k1, k2]."""
         a = x.reshape(self.n1, self.n2, -1)
-        return self._run_for_mesh(a, False)
+        return self._run(a, self._tw, self._fwd_tables, False)
 
     def intt(self, xk):
         """Inverse of ntt(): takes the (n1, n2) k-matrix, returns (n, L)."""
-        a = self._run_for_mesh(xk, True)
+        a = self._run(xk, self._tw_inv, self._inv_tables, True)
         return a.reshape(self.n1 * self.n2, -1)
 
     def spectral_to_natural(self, xk):

@@ -2,9 +2,9 @@
 
 All ops act on `uint32[..., L]` arrays (little-endian limbs, each < 2^16,
 value < p, Montgomery form) and are elementwise over every leading batch
-dimension — they trace to pure VPU code under `jax.jit` on TPU and run
-unchanged on CPU.  This is the TPU-native replacement for the FPGA field
-cores the reference drives blindly (its point/scalar byte widths:
+dimension — they trace to plain integer elementwise code under `jax.jit`
+that XLA fuses on the GPU and runs unchanged on CPU.  This replaces the
+FPGA field cores the reference drives blindly (its point/scalar byte widths:
 `/root/reference/src/ingo_msm/msm_cfg.rs:44-92`).
 
 Design notes (correctness invariants):
@@ -95,7 +95,7 @@ class Field:
         G[..., j] = carry generated by limbs [0..j] assuming zero carry-in:
         G_j = g_j | (p_j & g_{j-1}) | (p_j & p_{j-1} & g_{j-2}) | ...
         log2(W) vectorized rounds — no sequential limb chain, so both XLA
-        compile time and TPU/VPU runtime are O(log W) instead of O(W).
+        compile time and device runtime are O(log W) instead of O(W).
         """
         d = 1
         W = g.shape[-1]
@@ -187,7 +187,7 @@ class Field:
         flat offset i*(W+1)+j = target index i*W + (i+j) of an (Lb, W)
         view), and the anti-diagonal sums drop out as one axis reduction.
         O(1) XLA ops regardless of limb count — both compile time and
-        TPU/VPU runtime beat the 2*Lb-term pad/add chain this replaces.
+        device runtime beat the 2*Lb-term pad/add chain this replaces.
         """
         La, Lb = a.shape[-1], b.shape[-1]
         batch = jnp.broadcast_shapes(a.shape[:-1], b.shape[:-1])
@@ -209,26 +209,13 @@ class Field:
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p. a, b: uint32[..., L].
 
-        On TPU this dispatches to the fused Pallas kernel (fields/mxu.py):
-        VMEM-resident convolution + MXU REDC, ~20x the portable path.
-
-        Portable path: full-width REDC: T = a*b; m = (T mod R) * N' mod R
-        with N' = -p^-1 mod R; result = (T + m*p) / R < 2p, then one
+        Full-width REDC: T = a*b; m = (T mod R) * N' mod R with
+        N' = -p^-1 mod R; result = (T + m*p) / R < 2p, then one
         conditional subtraction.  Three independent convolution phases +
-        three short carry chains — a structure XLA fuses well on both CPU
-        and TPU (the classic limb-serial CIOS interleaving of narrow
-        carries with wide updates compiles catastrophically slowly).
+        three short carry chains — a structure XLA fuses well (the
+        classic limb-serial CIOS interleaving of narrow carries with wide
+        updates compiles catastrophically slowly).
         """
-        from .mxu import mont_mul_mxu, mxu_available
-
-        if mxu_available():
-            out = mont_mul_mxu(self.spec, a, b)
-            if out is not None:
-                return out
-        return self._mul_portable(a, b)
-
-    def _mul_portable(self, a, b):
-        """XLA-only REDC path (CPU tests, non-TPU backends)."""
         L = self.nlimbs
         W = 2 * L + 1
         p = jnp.asarray(self._p)
@@ -357,7 +344,7 @@ class Field:
     # ------------------------------------------------------- compact storage
     @staticmethod
     def compress(a):
-        """uint32 limbs -> uint16 storage (halves HBM footprint)."""
+        """uint32 limbs -> uint16 storage (halves the device footprint)."""
         return a.astype(jnp.uint16)
 
     @staticmethod

@@ -7,8 +7,8 @@ Here the arithmetic is implemented for real: elements are little-endian
 arrays of 16-bit limbs held in uint32 lanes, in Montgomery form with
 R = 2^(16*nlimbs).  16-bit limbs are chosen so that a full limb product
 (< 2^32) is exact in a uint32 lane and lazy-carry column sums of up to
-2*nlimbs partial products still fit in 32 bits — the representation the
-TPU VPU natively vectorizes.
+2*nlimbs partial products still fit in 32 bits: plain uint32
+elementwise code with no 64-bit intermediates.
 """
 from __future__ import annotations
 

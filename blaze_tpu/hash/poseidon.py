@@ -1,4 +1,4 @@
-"""Batched Poseidon permutation and sponge hash on TPU.
+"""Batched Poseidon permutation and sponge hash.
 
 The compute core the reference's FPGA hash engine performs opaquely
 (`/root/reference/src/ingo_hash/poseidon_api.rs`): x^5 S-box, MDS mix,
@@ -12,7 +12,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..fields.mont import Field
 from .params import PoseidonParams
@@ -62,17 +61,7 @@ class Poseidon:
 
     # ---------------------------------------------------------- permutation
     def _permute(self, state):
-        """(..., t, L) Montgomery -> (..., t, L).
-
-        On TPU the whole permutation runs as ONE fused Pallas kernel
-        (hash/kernels.py); off-TPU (or under portable_only) it is the
-        XLA-composed round loop below."""
-        from ..fields.mxu import mxu_available
-
-        if mxu_available() and self.params.alpha == 5:
-            from .kernels import PoseidonKernels
-
-            return PoseidonKernels.for_params(self.params).permute_pm(state)
+        """(..., t, L) Montgomery -> (..., t, L)."""
         p = self.params
         rc = jnp.asarray(p.rc_mont)  # (rounds, t, L)
         half_f = p.r_f // 2

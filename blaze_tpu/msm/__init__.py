@@ -1,10 +1,5 @@
 from .pippenger import MSM, MSMConfig, default_window_bits
 from .precompute import precompute_points, shift_bits_for, split_scalars
-from .residency import (
-    points_from_resident,
-    points_to_resident,
-    scalars_to_resident,
-)
 
 __all__ = [
     "MSM",
@@ -13,7 +8,4 @@ __all__ = [
     "precompute_points",
     "shift_bits_for",
     "split_scalars",
-    "points_from_resident",
-    "points_to_resident",
-    "scalars_to_resident",
 ]

@@ -1,4 +1,4 @@
-"""Pippenger multi-scalar multiplication, TPU-native.
+"""Pippenger multi-scalar multiplication on plain JAX/XLA.
 
 Replaces the reference's FPGA MSM engine (`/root/reference/src/ingo_msm/`,
 register lifecycle in msm_api.rs:72-274) with an actual bucket-method
@@ -7,8 +7,8 @@ implementation designed for XLA:
   1. c-bit digit decomposition of 16-bit scalar limbs (c=16 gives digits ==
      limbs; the reference's 8x precompute over 32-bit windows,
      msm_api.rs:39-40, is the same windowing idea);
-  2. per window: sort point indices by digit (XLA sort — TPUs hate scatter,
-     so bucket accumulation becomes contiguous-run reduction);
+  2. per window: sort point indices by digit (XLA sort instead of a
+     scatter, so bucket accumulation becomes contiguous-run reduction);
   3. an EC *prefix scan* over the sorted points, computed as a two-level
      sequential lane scan (lax.scan over N/R steps of R-wide batched
      complete additions) — work-efficient (~N adds) with a graph containing
@@ -30,11 +30,12 @@ import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..curves.ops import Curve
-from ..curves.spec import CurveSpec
 from ..fields.spec import LIMB_BITS
+
+
+_REDUCE_STEPS = 16   # sequential adds per level of _tree_reduce
 
 
 def _ceil_pow2(x: int) -> int:
@@ -62,34 +63,9 @@ class MSMConfig:
     """Static planning knobs (hashable; safe as a jit static argument)."""
 
     window_bits: int = 16          # c; buckets per window B = 2^c
-    chunk_log2: int = 19           # points per device pass (memory bound)
-    scan_lanes: int = 0            # 0 = auto (~sqrt of padded chunk)
+    chunk_log2: int = 20           # points per device pass (memory bound)
+    scan_lanes: int = 0            # 0 = auto (~4 sqrt of padded chunk)
     group_windows: int = 6         # windows co-scanned per pass (memory bound)
-    fused: str = "auto"            # fused Pallas EC kernels: auto/on/off
-    interpret: bool = False        # run the Pallas kernels interpreted (CPU tests)
-    # Balanced (signed) digits on the fused path: buckets halve to
-    # 2^(c-1)+1 (the Abel tail + boundary gathers halve with them) at the
-    # cost of an in-kernel conditional Y negation per scanned point.
-    signed_digits: bool = False
-    # lanes per Pallas grid block (fused path): 1024 measured best — the
-    # standalone mul keeps gaining to 2048, but the scan kernel's bigger
-    # working set regresses past 1024 (445 -> 520 ms per 2^20 chunk)
-    kernel_tile: int = 1024
-
-    def windows(self, scalar_bits: int) -> int:
-        return -(-scalar_bits // self.window_bits)
-
-    def fused_active(self) -> bool:
-        if self.fused == "off":
-            return False
-        from ..curves.kernels import kernels_available
-
-        if self.fused == "on":
-            return True
-        return (
-            kernels_available()
-            and jax.default_backend() == "tpu"
-        )
 
 
 def default_window_bits(n: int) -> int:
@@ -106,6 +82,17 @@ class MSM:
     def __init__(self, curve: Curve, config: MSMConfig | None = None):
         self.curve = curve
         self.config = config or MSMConfig()
+
+    # The jitted methods take `self` as a static argument: engines with the
+    # same curve and config share their compiled programs.
+    def _key(self):
+        return (self.curve.spec.name, self.config)
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, MSM) and self._key() == other._key()
 
     # ------------------------------------------------------------ digits
     def _digits(self, scalars, c: int, nwin: int):
@@ -124,49 +111,6 @@ class MSM:
                 raise ValueError("window_bits must be <= 16")
             outs.append(d & mask)
         return jnp.stack(outs, axis=0)
-
-    def _digits_lm(self, scalars, c: int, nwin: int):
-        """(Ls, N) lanes-major 16-bit limbs -> (nwin, N) c-bit digits.
-
-        Same math as _digits but limbs on axis 0, so every slice is a
-        full 128-lane row (no 16 -> 128 lane padding of the limb axis)."""
-        padded = jnp.pad(scalars, [(0, 2), (0, 0)])
-        outs = []
-        mask = jnp.uint32((1 << c) - 1)
-        for w in range(nwin):
-            lo_bit = w * c
-            limb, off = divmod(lo_bit, LIMB_BITS)
-            d = padded[limb] >> off
-            if off + c > LIMB_BITS:
-                d = d | (padded[limb + 1] << (LIMB_BITS - off))
-            outs.append(d & mask)
-        return jnp.stack(outs, axis=0)
-
-    @staticmethod
-    def _signed_recode(digits, c: int):
-        """Balanced-digit recode of (G, N) c-bit digits: returns (mag,
-        sign) with mag in [0, 2^(c-1)] and
-        sum_w (-1)^sign_w * mag_w * 2^(c*w) == scalar.  Digits >= 2^(c-1)
-        become 2^c - d with a +1 carry into the next window; the TOP
-        window stays unsigned (the caller guarantees its digit + carry
-        <= 2^(c-1) by requiring total bits <= c*G - 1)."""
-        G = digits.shape[0]
-        half = jnp.uint32(1 << (c - 1))
-        full = jnp.uint32(1 << c)
-        one, zero = jnp.uint32(1), jnp.uint32(0)
-        mags, signs = [], []
-        carry = jnp.zeros_like(digits[0])
-        for w in range(G):
-            d = digits[w] + carry
-            if w == G - 1:
-                mags.append(d)
-                signs.append(jnp.zeros_like(d))
-                break
-            hi = d >= half
-            mags.append(jnp.where(hi, full - d, d))
-            signs.append(jnp.where(hi, one, zero))
-            carry = jnp.where(hi, one, zero)
-        return jnp.stack(mags), jnp.stack(signs)
 
     # ------------------------------------------------- sequential EC scan
     def _proj_scan(self, pts):
@@ -215,46 +159,30 @@ class MSM:
     def _tree_reduce(self, pts):
         """EC sum over axis 0 of (M, ..., 3, L); ~M total group adds.
 
-        Shape-adaptive: big inputs use log-depth pairwise halving (few
-        sequential steps; ~log2 M distinct add shapes — fine where runtime
-        dominates), small inputs use a two-level scan reduction (2-3 op
-        instances total — XLA:CPU compile of each distinct batched group-op
-        costs seconds, which dominates small/test workloads).
+        Each level folds the M rows into ceil(M/_REDUCE_STEPS) lane totals
+        with one lax.scan of at most _REDUCE_STEPS batched adds, then
+        recurses: log_16(M) levels with one add instance each.  Compile time
+        grows with the number of distinct add instances (a halving tree
+        has one per level of log2 M), and the live batch stays M/steps.
         """
         cv = self.curve
-        while pts.shape[0] > 512:
-            m = pts.shape[0]
-            half = m // 2
-            merged = cv.add(pts[:half], pts[half : 2 * half])
-            if m % 2:
-                merged = jnp.concatenate([merged, pts[2 * half :]], axis=0)
-            pts = merged
-
         M = pts.shape[0]
         rest = pts.shape[1:]
         if M == 1:
             return pts[0]
-        ident = _vary_like(jnp.broadcast_to(cv.identity(), rest), pts)
-        if M <= 32:
-            def body(carry, p):
-                return cv.add(carry, p), None
-
-            tot, _ = jax.lax.scan(body, ident, pts)
-            return tot
-        R = _ceil_pow2(int(math.sqrt(M)))
+        R = -(-M // _REDUCE_STEPS)
         C = -(-M // R)
         pad = R * C - M
         if pad:
             pads = jnp.broadcast_to(cv.identity(), (pad, *rest))
             pts = jnp.concatenate([pts, pads], axis=0)
-        grid = jnp.moveaxis(pts.reshape(R, C, *rest), 1, 0)  # (C, R, *rest)
 
         def body(carry, row):
             return cv.add(carry, row), None
 
         lane_tot, _ = jax.lax.scan(
             body, _vary_like(jnp.broadcast_to(cv.identity(), (R, *rest)), pts),
-            grid,
+            pts.reshape(C, R, *rest),
         )
         return self._tree_reduce(lane_tot)
 
@@ -268,26 +196,27 @@ class MSM:
         each, plus the raw (G, B) boundary indices (-1 = empty).
 
         All G windows ride one lax.scan: per step the mixed-add batch is
-        (G, R) — G x wider VPU waves and G x fewer sequential dispatches
+        (G, R) — G x wider batches and G x fewer sequential steps
         than scanning windows one at a time.  Scan emissions are stored as
-        uint16 (limbs are < 2^16) to halve the O(N*G) HBM footprint.
+        uint16 (limbs are < 2^16) to halve the O(N*G) device footprint.
         """
         cv = self.curve
         G, N = digits.shape
         B = 1 << c
         L = pts_affine.shape[-1]
 
-        order = jnp.argsort(digits, axis=-1)                    # (G, N)
-        sorted_d = jnp.take_along_axis(digits, order, axis=-1)
-        sorted_p = jnp.take(pts_affine, order, axis=0)          # (G, N, 2, L)
+        with jax.named_scope("msm_sort"):
+            order = jnp.argsort(digits, axis=-1)                # (G, N)
+            sorted_d = jnp.take_along_axis(digits, order, axis=-1)
+            sorted_p = jnp.take(pts_affine, order, axis=0)      # (G, N, 2, L)
 
-        # e_j = last sorted index with digit <= j  (=-1 if none)
-        targets = jnp.arange(1, B + 1, dtype=digits.dtype)
-        bounds = (
-            jax.vmap(lambda d: jnp.searchsorted(d, targets))(sorted_d)
-            .astype(jnp.int32)
-            - 1
-        )                                                       # (G, B)
+            # e_j = last sorted index with digit <= j  (=-1 if none)
+            targets = jnp.arange(1, B + 1, dtype=digits.dtype)
+            bounds = (
+                jax.vmap(lambda d: jnp.searchsorted(d, targets))(sorted_d)
+                .astype(jnp.int32)
+                - 1
+            )                                                   # (G, B)
 
         # Lane count: wider than sqrt(N) so every scan step is a large
         # batched add; the O(R) lane-carry fix-up stays a small fraction
@@ -362,302 +291,6 @@ class MSM:
         carry_g, local, _ = self._scan_phase(pts_affine, digits, c)
         return self._bucket_phase(carry_g, local, c)
 
-    # ------------------------------------------- fused-kernel (TPU) path
-    #
-    # Same algorithm as _scan_phase/_bucket_phase, but the two O(N)/O(B)
-    # EC-add streams run inside single Pallas kernels (curves/kernels.py):
-    # the lane scan keeps its running sum in VMEM scratch across grid
-    # steps, and bucket-boundary reduction reuses the same shape as a
-    # carry-scratch column reduction.  Layouts are lanes-major (3L, B) —
-    # limbs on sublanes, batch on lanes — end to end.
-
-    @staticmethod
-    def _pm2lm(p):
-        """Points-major (..., M, k, L) -> lanes-major (..., k*L, M)."""
-        *lead, M, k, L = p.shape
-        return jnp.moveaxis(p, -3, -1).reshape(*lead, k * L, M)
-
-    @staticmethod
-    def _lm2pm(x, k: int):
-        """Lanes-major (..., k*L, M) -> points-major (..., M, k, L)."""
-        *lead, kL, M = x.shape
-        L = kL // k
-        return jnp.moveaxis(x.reshape(*lead, k, L, M), -1, -3)
-
-    def _canon(self, x):
-        """Reduce limbs (..., L) from the kernels' lazy < 2p range to < p
-        (curves/kernels.py keeps values < 2p in-kernel; XLA-path Field ops
-        assume canonical inputs)."""
-        f = self.curve.fq
-        return f._cond_sub_p(x, jnp.zeros(x.shape[:-1], jnp.uint32))
-
-    def _ident_col_lm(self):
-        """(3L, 1) lanes-major identity column (u32)."""
-        return self.curve.identity().reshape(-1, 1)
-
-    def _fused_reduce_rows(self, pts, kern):
-        """EC sum over axis -3 of (..., M, 3, L) -> (..., 3, L), < 2p.
-
-        Accepts u16 or u32 rows in the kernels' lazy < 2p range.  One big
-        reduce_cols pass to R2 lane totals, then further reduce_cols
-        rounds in lanes-major layout down to one point per lead entry
-        (tiny arrays; every round is a handful of fused grid steps — the
-        XLA-path tree fold this replaces cost ~85us per sequential op)."""
-        cv = self.curve
-        *lead, M, _, L = pts.shape
-        G = int(np.prod(lead)) if lead else 1
-        flat = pts.reshape(G, M, 3, L)
-        R2 = _ceil_pow2(int(math.sqrt(max(M, 4))))
-        C2 = -(-M // R2)
-        pad = R2 * C2 - M
-        if pad:
-            ident = jnp.broadcast_to(
-                cv.identity().astype(flat.dtype), (G, pad, 3, L)
-            )
-            flat = jnp.concatenate([flat, ident], axis=1)
-        # (G, R2, C2, 3L) -> rows (C2, 3L, G*R2)
-        r4 = flat.reshape(G, R2, C2, 3 * L)
-        rows = jnp.moveaxis(jnp.moveaxis(r4, 2, 0), -1, 1)
-        rows = rows.reshape(C2, 3 * L, G * R2)
-        tot = kern.reduce_cols(rows.astype(jnp.uint16))    # (3L, G*R2)
-        R = R2
-        while R > 1:
-            R3 = _ceil_pow2(int(math.sqrt(R))) if R > 4 else 1
-            C3 = R // R3
-            # lanes g*R + (r3*C3 + c3) -> rows (C3, 3L, G*R3)
-            r4 = tot.reshape(3 * L, G, R3, C3)
-            rows = jnp.moveaxis(r4, 3, 0).reshape(C3, 3 * L, G * R3)
-            tot = kern.reduce_cols(rows.astype(jnp.uint16))
-            R = R3
-        # (3L, G) -> (G, 3, L); canonicalize out of the lazy range
-        out = self._canon(jnp.moveaxis(tot.reshape(3, L, G), -1, 0))
-        return out.reshape(*lead, 3, L) if lead else out[0]
-
-    def _ks_lane_prefix(self, tot_lm, G: int, R: int, kern):
-        """Exclusive EC prefix over the R lanes of each window.
-
-        tot_lm: (3L, G*R) u32 lane totals (< 2p), lane index g*R + r.
-        Returns (R, G, 3, L) u16 exclusive prefixes (< 2p).  Kogge-Stone
-        doubling on the fused add kernel: log2(R) batched kernel calls
-        instead of R sequential XLA-level group ops."""
-        L = self.curve.nlimbs
-        threeL = 3 * L
-        ident = jnp.broadcast_to(
-            self._ident_col_lm()[:, :, None], (threeL, G, 1)
-        )
-        x = tot_lm.reshape(threeL, G, R)
-        d = 1
-        while d < R:
-            idc = jnp.broadcast_to(
-                self._ident_col_lm()[:, :, None], (threeL, G, d)
-            )
-            shifted = jnp.concatenate([idc, x[:, :, :-d]], axis=2)
-            x = kern.add(
-                x.reshape(threeL, G * R), shifted.reshape(threeL, G * R)
-            ).reshape(threeL, G, R)
-            d *= 2
-        excl = jnp.concatenate([ident, x[:, :, :-1]], axis=2)
-        # (3L, G, R) -> (R, G, 3, L) u16 (limbs < 2^16; halves gather IO)
-        return jnp.moveaxis(
-            excl.reshape(3, L, G, R), (0, 1), (2, 3)
-        ).transpose(1, 0, 2, 3).astype(jnp.uint16)
-
-    def _fused_chunk(self, pts, scalars, c: int, scalar_bits=None):
-        """Per-window sums (nwin, 3, L) for one chunk, fused-kernel path.
-
-        pts: (N, 2, L) u32 affine Montgomery, OR the lanes-major resident
-        layout (2L, N) u16 — points on the 128-lane minor axis, limbs on
-        sublanes.  The lanes-major form tiles with ZERO padding; the
-        points-major form is padded 24 -> 128 lanes by XLA (5.3x HBM
-        expansion — what capped single-chip MSM below 2^24).  scalars:
-        (N, Ls) u32, or (Ls, N) u16 lanes-major.
-        """
-        from ..curves.kernels import ECKernels
-
-        cv = self.curve
-        kern = ECKernels.for_curve(cv.spec, tile=self.config.kernel_tile,
-                                   interpret=self.config.interpret)
-        L = cv.nlimbs
-        lanes_major = pts.ndim == 2
-        N = pts.shape[1] if lanes_major else pts.shape[0]
-        B = 1 << c
-        nwin = -(-(scalar_bits or cv.spec.fr.bits) // c)
-        # scalar layout follows the point layout; digit extraction shifts
-        # need uint32 headroom
-        scal = scalars.astype(jnp.uint32)
-        digits = (self._digits_lm(scal, c, nwin) if lanes_major
-                  else self._digits(scal, c, nwin))
-        G = nwin
-
-        # balanced digits: sound only when the top window keeps a spare
-        # bit for the incoming carry (total bits <= c*G - 1)
-        signed = (
-            self.config.signed_digits
-            and c >= 2
-            and (scalar_bits or cv.spec.fr.bits) <= c * nwin - 1
-        )
-        if signed:
-            mag, sgn = self._signed_recode(digits, c)
-            digits = mag
-            sortkey = (mag << 1) | sgn     # sign rides the sort key: the
-            B = (1 << (c - 1)) + 1         # boundaries depend only on mag
-        else:
-            sortkey = digits
-            B = 1 << c
-
-        order = jnp.argsort(sortkey, axis=-1)              # (G, N)
-        if not lanes_major:
-            pts = pts.reshape(N, 2 * L).astype(jnp.uint16)  # affine rows
-
-        # bucket boundaries e_j = #(digit <= j) - 1, via an MXU histogram:
-        # one-hot(hi bits)^T @ one-hot(lo bits) counts every (hi, lo)
-        # digit pair in one int8 batched matmul (exact in i32), then a
-        # cumsum.  Replaces vmapped searchsorted, whose 2^c binary-search
-        # gathers per window dominated whole-MSM time; int8 + a single
-        # batched dot keeps one-hot HBM traffic and dispatches minimal.
-        lo_bits = min(c, 8)
-        lo_n = 1 << lo_bits
-        hi_n = max(-(-B // lo_n), 1)
-        # Slab the one-hot matmuls through a scan accumulator: the full
-        # (G, N, 256) int8 one-hot pair costs ~8.6 GiB at N = 2^20 — the
-        # 2^24 OOM driver.  Per-slab peak is 2 * G * Ns * 256 B.
-        Ns = min(N, 1 << 15)
-        S = -(-N // Ns)
-        dpad = jnp.pad(
-            digits, ((0, 0), (0, S * Ns - N)), constant_values=hi_n * lo_n
-        )  # pad digit hi_n*lo_n: its hi one-hot row is all-zero -> uncounted
-        dh = jnp.moveaxis(
-            (dpad >> lo_bits).astype(jnp.int32).reshape(G, S, Ns), 1, 0)
-        dl = jnp.moveaxis(
-            (dpad & (lo_n - 1)).astype(jnp.int32).reshape(G, S, Ns), 1, 0)
-
-        def slab(acc, args):
-            dhs, dls = args                                # (G, Ns)
-            A = (dhs[..., None] == jnp.arange(hi_n, dtype=jnp.int32)).astype(
-                jnp.int8
-            )                                              # (G, Ns, hi)
-            Bm = (dls[..., None] == jnp.arange(lo_n, dtype=jnp.int32)).astype(
-                jnp.int8
-            )                                              # (G, Ns, lo)
-            h = jax.lax.dot_general(
-                A, Bm, (((1,), (1,)), ((0,), (0,))),
-                preferred_element_type=jnp.int32,
-            )                                              # (G, hi, lo)
-            return acc + h, None
-
-        hist0 = jnp.zeros((G, hi_n, lo_n), jnp.int32)
-        hist, _ = jax.lax.scan(slab, hist0, (dh, dl))
-        hist = hist.reshape(G, hi_n * lo_n)[:, :B]
-        bounds = jnp.cumsum(hist, axis=-1) - 1             # (G, B)
-
-        R = self.config.scan_lanes or _ceil_pow2(int(math.sqrt(N)))
-        R = min(R, N)
-        C = -(-N // R)
-        pad = R * C - N
-        if lanes_major:
-            # xy-pack to u32 (L, N): limb row r = X_r | (Y_r << 16) — the
-            # lane-axis gather cost scales with element count, so packing
-            # halves it (measured 319 -> 189 ms at N=2^20), and the scan
-            # kernel unpacks with two mask ops in VMEM.
-            if pts.dtype != jnp.uint32:
-                pts = (pts[:L].astype(jnp.uint32)
-                       | (pts[L:].astype(jnp.uint32) << 16))
-            sp = jnp.take(pts, order, axis=1)              # (L, G, N) u32
-            if signed:
-                ss = jnp.take_along_axis(sortkey, order, axis=-1) & 1
-                sp = jnp.concatenate([sp, ss[None]], axis=0)  # (L+1, G, N)
-            nr = sp.shape[0]
-            if pad:
-                last = jnp.broadcast_to(sp[:, :, -1:], (nr, G, pad))
-                sp = jnp.concatenate([sp, last], axis=2)
-            # (nr, G, R, C) -> rows (C, nr, G*R); n = r*C + c as below
-            rows = jnp.moveaxis(sp.reshape(nr, G, R, C), 3, 0)
-            rows = rows.reshape(C, nr, G * R)
-        else:
-            sp = jnp.take(pts, order, axis=0)              # (G, N, 2L) u16
-            if signed:
-                ss = (jnp.take_along_axis(sortkey, order, axis=-1) & 1
-                      ).astype(jnp.uint16)
-                sp = jnp.concatenate([sp, ss[..., None]], axis=-1)
-            nr = sp.shape[-1]
-            if pad:
-                last = jnp.broadcast_to(sp[:, -1:], (G, pad, nr))
-                sp = jnp.concatenate([sp, last], axis=1)
-            # (G, R, C, nr) -> rows (C, nr, G*R)
-            rows = jnp.moveaxis(sp.reshape(G, R, C, nr), 2, 0)  # (C,G,R,nr)
-            rows = jnp.moveaxis(rows, -1, 1).reshape(C, nr, G * R)
-
-        emitted, tot = kern.scan_mixed(rows)   # (C, 3L, GR) u16, (3L, GR) u32
-
-        # lane-carry exclusive prefix per window, via fused Kogge-Stone
-        excl16 = self._ks_lane_prefix(tot, G, R, kern)     # (R, G, 3, L) u16
-
-        safe = jnp.maximum(bounds, 0)                      # (G, B)
-        lane_idx = safe // C
-        col_idx = safe % C
-        gidx = jnp.arange(G, dtype=jnp.int32)[:, None]
-        flat_lane = gidx * R + lane_idx                    # (G, B)
-        local16 = emitted[col_idx, :, flat_lane]           # (G, B, 3L) u16
-        local16 = local16.reshape(G, B, 3, L)
-        carry16 = excl16[lane_idx, gidx]                   # (G, B, 3, L) u16
-
-        # Everything stays u16 in the lazy < 2p range: the downstream
-        # fused reduction accepts it directly, so no canonicalization or
-        # u32 conversion ever touches the big (G, B, 3, L) arrays.
-        valid = bounds[..., None, None] >= 0
-        ident16 = jnp.broadcast_to(
-            cv.identity().astype(jnp.uint16), local16.shape
-        )
-        local16 = jnp.where(valid, local16, ident16)
-        carry16 = jnp.where(valid, carry16, ident16)
-
-        # ---- bucket phase (Abel summation), fused reduction.  Only the
-        # two B-1 column slices enter XLA-path group ops -> canon them.
-        total = cv.add(
-            self._canon(carry16[:, B - 1].astype(jnp.uint32)),
-            self._canon(local16[:, B - 1].astype(jnp.uint32)),
-        )                                                  # (G, 3, L)
-
-        # (B-1) * T in ONE chained-doubling kernel (in-graph XLA-level
-        # group ops cost ~85 us/link): unsigned B-1 = 2^c - 1 needs the
-        # subtract fixup; signed B-1 = 2^(c-1) is a pure doubling chain
-        tot_lm = jnp.moveaxis(total, 0, -1).reshape(3 * L, G)
-        if signed:
-            shifted_lm = kern.dbl_n(tot_lm, c - 1)
-            acc = self._canon(
-                jnp.moveaxis(shifted_lm.reshape(3, L, G), -1, 0)
-            )
-        else:
-            shifted_lm = kern.dbl_n(tot_lm, c)
-            shifted = self._canon(
-                jnp.moveaxis(shifted_lm.reshape(3, L, G), -1, 0)
-            )
-            acc = cv.add(shifted, cv.neg(total))           # (B-1) * T
-        if B > 1:
-            rest = jnp.concatenate(
-                [carry16[:, : B - 1], local16[:, : B - 1]], axis=1
-            )                                              # (G, 2B-2, 3, L) u16
-            partial = self._fused_reduce_rows(rest, kern)  # (G, 3, L)
-            acc = cv.add(acc, cv.neg(partial))
-        return acc
-
-    def _small_scalar_mul(self, point, k: int, nbits: int):
-        """point * k for k < 2^nbits via fori_loop double-and-add.
-
-        `point` may carry leading batch dims: (..., 3, L)."""
-        cv = self.curve
-        kbits = jnp.asarray(
-            [(k >> (nbits - 1 - i)) & 1 for i in range(nbits)], dtype=jnp.uint32
-        )
-
-        def body(i, acc):
-            acc = cv.dbl(acc)
-            added = cv.add(acc, point)
-            return cv.select(jnp.asarray(kbits[i] == 1), added, acc)
-
-        init = _vary_like(jnp.broadcast_to(cv.identity(), point.shape), point)
-        return jax.lax.fori_loop(0, nbits, body, init)
-
     # ------------------------------------------------------------- driver
     def msm_chunk(self, points_aff_mont, scalars, c: int,
                   scalar_bits: int | None = None):
@@ -729,27 +362,6 @@ class MSM:
     def _fold_jit(self, wsums, c: int):
         return self.fold_windows(wsums, c)
 
-    @functools.partial(jax.jit, static_argnums=(0, 3, 4, 5))
-    def _msm_fused_jit(self, pts, scalars, c: int, scalar_bits, fold: bool):
-        """One chunk on the fused-kernel path, optionally folded: a single
-        dispatch end-to-end (digits -> sort -> fused scan -> fused bucket
-        reduction -> Horner fold) — dispatch latency matters on TPU."""
-        wsums = self._fused_chunk(pts, scalars, c, scalar_bits)
-        if not fold:
-            return wsums
-        from ..curves.kernels import ECKernels
-
-        kern = ECKernels.for_curve(self.curve.spec,
-                                   tile=self.config.kernel_tile,
-                                   interpret=self.config.interpret)
-        L = self.curve.nlimbs
-        nwin = wsums.shape[0]
-        if nwin == 1:
-            return wsums[0]
-        ws_lm = jnp.moveaxis(wsums, 0, -1).reshape(3 * L, nwin)
-        res = kern.fold_horner(ws_lm, c)                   # (3L,), < 2p
-        return self._canon(res.reshape(3, L))
-
     @functools.partial(jax.jit, static_argnums=0)
     def _add_wsums(self, a, b):
         return self.curve.add(a, b)
@@ -765,17 +377,7 @@ class MSM:
 
     def msm_partial(self, points, scalars, c: int,
                     scalar_bits: int | None = None):
-        """Per-window sums (nwin, 3, L) of one resident chunk, active path."""
-        if self.config.fused_active():
-            return self._msm_fused_jit(points, scalars, c, scalar_bits, False)
-        if points.ndim == 2:
-            raise ValueError(
-                "lanes-major (2L, N) residency needs the fused TPU path"
-            )
-        if points.dtype == jnp.uint16:
-            points = points.astype(jnp.uint32)
-        if scalars.dtype == jnp.uint16:
-            scalars = scalars.astype(jnp.uint32)
+        """Per-window sums (nwin, 3, L) of one resident chunk."""
         nwin = -(-(scalar_bits or self.curve.spec.fr.bits) // c)
         ngroups = -(-nwin // max(1, self.config.group_windows))
         G = -(-nwin // ngroups)
@@ -811,28 +413,14 @@ class MSM:
         analog, msm_api.rs:156).  `scalar_bits` is for precompute-expanded
         inputs (see `msm_precomputed`).
         """
-        lanes_major = points_aff_mont.ndim == 2     # (2L, N) u16 residency
-        n = points_aff_mont.shape[1 if lanes_major else 0]
+        n = points_aff_mont.shape[0]
         c = window_bits or min(self.config.window_bits, default_window_bits(n))
-        nwin = -(-(scalar_bits or self.curve.spec.fr.bits) // c)
         chunk = 1 << self.config.chunk_log2
-
-        if self.config.fused_active() and n <= chunk:
-            # single chunk: digits -> sort -> fused scan -> bucket
-            # reduction -> Horner fold in ONE dispatch
-            return self._msm_fused_jit(
-                points_aff_mont, scalars, c, scalar_bits, True
-            )
         wsums = None
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            if lanes_major:
-                pslice = points_aff_mont[:, lo:hi]
-                sslice = scalars[:, lo:hi]
-            else:
-                pslice = points_aff_mont[lo:hi]
-                sslice = scalars[lo:hi]
-            part = self.msm_partial(pslice, sslice, c, scalar_bits)
+            part = self.msm_partial(points_aff_mont[lo:hi], scalars[lo:hi],
+                                    c, scalar_bits)
             wsums = self.accumulate(wsums, part)
         return self.finalize(wsums, c)
 

@@ -33,10 +33,6 @@ def _load():
                             ctypes.c_size_t, ctypes.c_int, ctypes.c_int]),
         ("blz_transpose", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
                            ctypes.c_size_t, ctypes.c_int]),
-        ("blz_to_blocked", [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_size_t, ctypes.c_int, ctypes.c_int]),
-        ("blz_from_blocked", [ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_size_t, ctypes.c_int, ctypes.c_int]),
     ]:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -119,37 +115,3 @@ def transpose(data: bytes, rows: int, cols: int, elem_bytes: int) -> bytes:
         return dst.tobytes()
     arr = np.frombuffer(data, dtype=np.uint8).reshape(rows, cols, elem_bytes)
     return np.ascontiguousarray(arr.transpose(1, 0, 2)).tobytes()
-
-
-def to_blocked(x16: np.ndarray, block: int) -> np.ndarray:
-    """(K, L) uint16 row-major -> (K/block, L, block) blocked layout."""
-    k, l = x16.shape
-    if k % block:
-        from ..utils.errors import DataError
-
-        raise DataError(f"to_blocked: K={k} not a multiple of block={block}")
-    lib = _load()
-    src = np.ascontiguousarray(x16, dtype=np.uint16)
-    if lib:
-        dst = np.empty((k // block, l, block), dtype=np.uint16)
-        lib.blz_to_blocked(src.ctypes.data, dst.ctypes.data, k, l, block)
-        return dst
-    return np.ascontiguousarray(
-        src.reshape(k // block, block, l).swapaxes(1, 2)
-    )
-
-
-def from_blocked(xb: np.ndarray, block: int) -> np.ndarray:
-    """(K/block, L, block) blocked -> (K, L) uint16 row-major."""
-    kb, l, t = xb.shape
-    if t != block:
-        from ..utils.errors import DataError
-
-        raise DataError(f"from_blocked: last axis {t} != block={block}")
-    src = np.ascontiguousarray(xb, dtype=np.uint16)
-    lib = _load()
-    if lib:
-        dst = np.empty((kb * t, l), dtype=np.uint16)
-        lib.blz_from_blocked(src.ctypes.data, dst.ctypes.data, kb * t, l, t)
-        return dst
-    return np.ascontiguousarray(src.swapaxes(1, 2)).reshape(kb * t, l)

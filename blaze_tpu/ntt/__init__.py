@@ -1,12 +1,7 @@
 from .transform import NTTPlan, FourStepNTT, make_ntt
-from .fused import FusedNTT, split_parts
-from .kernels import NTTKernels
 
 __all__ = [
     "NTTPlan",
     "FourStepNTT",
-    "FusedNTT",
-    "NTTKernels",
     "make_ntt",
-    "split_parts",
 ]

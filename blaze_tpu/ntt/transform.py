@@ -2,7 +2,7 @@
 
 The reference's NTT is a fixed 2^27 FPGA kernel fed through a 16-bank HBM
 scatter/gather shuffle done on the host CPU (`/root/reference/src/ingo_ntt/
-ntt_data.rs:65-156`).  Here the transform itself is computed on TPU:
+ntt_data.rs:65-156`).  Here the transform itself is computed on the device:
 
   * iterative radix-2 DIT butterflies after a bit-reversal permutation.
     All log2(n) stages run through ONE compiled butterfly instance inside
@@ -14,7 +14,7 @@ ntt_data.rs:65-156`).  Here the transform itself is computed on TPU:
     host bigint loops;
   * a four-step (Bailey) decomposition for sizes whose twiddle/working
     sets exceed a single pass — the transpose between the two passes is
-    the TPU analog of the reference's 16-bank shuffle, and becomes an
+    the device analog of the reference's 16-bank shuffle, and becomes an
     all_to_all over the mesh in the distributed path (dist/ntt_dist.py).
 
 Data layout: (..., n, L) uint32 16-bit limbs, Montgomery form, natural
@@ -68,7 +68,7 @@ class NTTPlan:
         # [W^0 .. W^(n/2-1)], gathered in-graph.
         self.pow_fwd = root_powers(w)          # (n/2, L) device, Montgomery
         self.pow_inv = root_powers(winv)
-        self.bitrev = _bitrev_perm(logn)
+        self.bitrev = jnp.asarray(_bitrev_perm(logn), dtype=jnp.int32)
         ninv = pow(self.n, -1, p)
         self.n_inv_mont = np.asarray(
             int_to_limbs((ninv * spec.r) % p, L), dtype=np.uint32
@@ -106,24 +106,41 @@ class NTTPlan:
 
         return jax.lax.fori_loop(0, logn, stage, x)
 
-    def _fwd(self, x):
-        x = jnp.take(x, jnp.asarray(self.bitrev), axis=-2)
-        return self._stages(x, self.pow_fwd)
+    # the tables are arguments, never closed over: jit compiles a
+    # closed-over array into the executable
+    @property
+    def fwd_tables(self):
+        """(twiddle powers, bit-reversal permutation) of the forward pass."""
+        return self.pow_fwd, self.bitrev
 
-    def _inv(self, x):
-        x = jnp.take(x, jnp.asarray(self.bitrev), axis=-2)
-        x = self._stages(x, self.pow_inv)
+    @property
+    def inv_tables(self):
+        return self.pow_inv, self.bitrev
+
+    def _fwd(self, x, pow_all, perm):
+        x = jnp.take(x, perm, axis=-2)
+        return self._stages(x, pow_all)
+
+    def _inv(self, x, pow_all, perm):
+        x = jnp.take(x, perm, axis=-2)
+        x = self._stages(x, pow_all)
         return self.field.mul(x, jnp.asarray(self.n_inv_mont))
 
     @functools.cached_property
-    def ntt(self):
-        """Forward NTT, jitted. (..., n, L) Montgomery -> same."""
+    def _fwd_jit(self):
         return jax.jit(self._fwd)
 
     @functools.cached_property
-    def intt(self):
-        """Inverse NTT, jitted."""
+    def _inv_jit(self):
         return jax.jit(self._inv)
+
+    def ntt(self, x):
+        """Forward NTT, jitted. (..., n, L) Montgomery -> same."""
+        return self._fwd_jit(x, *self.fwd_tables)
+
+    def intt(self, x):
+        """Inverse NTT, jitted."""
+        return self._inv_jit(x, *self.inv_tables)
 
 
 class FourStepNTT:
@@ -155,12 +172,19 @@ class FourStepNTT:
         self.plan1 = NTTPlan(spec, self.logn1)
         self.plan2 = NTTPlan(spec, self.logn2)
 
-        p, L = spec.p, spec.nlimbs
-        w = spec.root_of_unity(logn)
-        self._tw_fwd = self._twiddle_matrix(w)
-        self._tw_inv = self._twiddle_matrix(pow(w, -1, p))
+        self.w = spec.root_of_unity(logn)
         # no global n^-1 scale needed: the sub-plans' inverse passes already
         # apply n1^-1 and n2^-1, and n1^-1 * n2^-1 == n^-1.
+
+    # each twiddle matrix is built on first use: a forward-only client never
+    # holds the inverse one (4 GiB apiece at 2^27)
+    @functools.cached_property
+    def _tw_fwd(self):
+        return self._twiddle_matrix(self.w)
+
+    @functools.cached_property
+    def _tw_inv(self):
+        return self._twiddle_matrix(pow(self.w, -1, self.spec.p))
 
     def _twiddle_matrix(self, w):
         """W^(i*j) for i<n1, j<n2, Montgomery form, uint16-compressed."""
@@ -169,52 +193,54 @@ class FourStepNTT:
         bases = self.field.powers(mont, self.n1)          # (n1, L)
         return Field.compress(self.field.power_matrix(bases, self.n2))
 
-    def _fwd(self, x):
+    def _fwd(self, x, tw, t1, t2):
+        """tw: the twiddle matrix; t1, t2: the sub-plans' tables."""
         f = self.field
         n1, n2, L = self.n1, self.n2, self.spec.nlimbs
         a = x.reshape(*x.shape[:-2], n1, n2, L)
         # column NTTs: transform over the n1 axis (move it last-but-one)
         a = jnp.swapaxes(a, -3, -2)                 # (..., n2, n1, L)
-        a = self.plan1._fwd(a)
+        a = self.plan1._fwd(a, *t1)
         a = jnp.swapaxes(a, -3, -2)                 # (..., n1, n2, L)
-        a = f.mul(a, Field.decompress(self._tw_fwd))
-        a = self.plan2._fwd(a)                      # row NTTs over n2 axis
+        a = f.mul(a, Field.decompress(tw))
+        a = self.plan2._fwd(a, *t2)                 # row NTTs over n2 axis
         # output index (j, i) -> X[j * n1 + i]
         a = jnp.swapaxes(a, -3, -2)                 # (..., n2, n1, L)
         return a.reshape(*x.shape[:-2], n1 * n2, L)
 
-    def _inv(self, x):
+    def _inv(self, x, tw, t1, t2):
         f = self.field
         n1, n2, L = self.n1, self.n2, self.spec.nlimbs
         a = x.reshape(*x.shape[:-2], n2, n1, L)     # inverse of final transpose
         a = jnp.swapaxes(a, -3, -2)                 # (..., n1, n2, L)
-        a = self.plan2._inv(a)
-        a = f.mul(a, Field.decompress(self._tw_inv))
+        a = self.plan2._inv(a, *t2)
+        a = f.mul(a, Field.decompress(tw))
         a = jnp.swapaxes(a, -3, -2)                 # (..., n2, n1, L)
-        a = self.plan1._inv(a)
+        a = self.plan1._inv(a, *t1)
         a = jnp.swapaxes(a, -3, -2)
         return a.reshape(*x.shape[:-2], n1 * n2, L)
 
     @functools.cached_property
-    def ntt(self):
+    def _fwd_jit(self):
         return jax.jit(self._fwd)
 
     @functools.cached_property
-    def intt(self):
+    def _inv_jit(self):
         return jax.jit(self._inv)
 
+    def ntt(self, x):
+        """Forward NTT; every table rides as an argument."""
+        return self._fwd_jit(x, self._tw_fwd, self.plan1.fwd_tables,
+                             self.plan2.fwd_tables)
 
-def make_ntt(spec: FieldSpec, logn: int, four_step_threshold: int = 20,
-             fused_threshold: int = 10):
-    """Factory: fused Pallas plan on TPU (ntt/fused.py) for logn >=
-    fused_threshold; below it (or off-TPU) the portable single-pass plan,
-    with the XLA four-step decomposition for large portable sizes."""
-    from ..fields.mxu import mxu_available
+    def intt(self, x):
+        return self._inv_jit(x, self._tw_inv, self.plan1.inv_tables,
+                             self.plan2.inv_tables)
 
-    if logn >= fused_threshold and mxu_available():
-        from .fused import FusedNTT
 
-        return FusedNTT(spec, logn)
+def make_ntt(spec: FieldSpec, logn: int, four_step_threshold: int = 20):
+    """Factory: the single-pass plan up to 2^four_step_threshold, the
+    four-step decomposition above it."""
     if logn <= four_step_threshold:
         return NTTPlan(spec, logn)
     return FourStepNTT(spec, logn)

@@ -1,8 +1,17 @@
 from .ec import ECOracle
-from .gen import tiled_msm_instance, random_msm_instance
+from .gen import (
+    class_coefficients,
+    class_msm_oracle,
+    random_msm_instance,
+    random_scalar_limbs,
+    tiled_msm_instance,
+)
 
 __all__ = [
     "ECOracle",
-    "tiled_msm_instance",
+    "class_coefficients",
+    "class_msm_oracle",
     "random_msm_instance",
+    "random_scalar_limbs",
+    "tiled_msm_instance",
 ]

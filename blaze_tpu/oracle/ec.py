@@ -102,14 +102,19 @@ class ECOracle:
         return rr
 
     def random_point(self, rng: random.Random):
-        """Uniform-ish curve point by x-coordinate rejection sampling."""
+        """Uniform-ish point of the r-order subgroup: x-coordinate
+        rejection sampling, then cofactor clearing.  Outside the subgroup
+        r * P != O, so a scalar reduced mod r would change the MSM (the
+        coefficient-sum oracles reduce their sums mod r)."""
         while True:
             x = rng.randrange(self.p)
             y = self.sqrt((x * x * x + self.b) % self.p)
             if y is not None:
                 if rng.randrange(2):
                     y = self.p - y
-                return (x, y)
+                pt = self.mul((x, y), self.spec.cofactor)
+                if pt is not None:
+                    return pt
 
     @property
     def generator(self):

@@ -71,3 +71,50 @@ def tiled_msm_instance(spec: CurveSpec, n: int, seed: int = 0):
     us = _scalars_to_limbs(spec, uscalars)
     idx = np.arange(n) % uniq
     return up[idx], us[idx], expected, {"points": upoints, "scalars": uscalars}
+
+
+def random_scalar_limbs(spec: CurveSpec, n: int, seed: int = 0) -> np.ndarray:
+    """(n, Ls) uint32 limbs of n DISTINCT random scalars below r.
+
+    Made in bulk with numpy: every limb uniform, the top limb cut to
+    fr.bits - 1 bits so each value is < 2^(fr.bits-1) < r.  Distinctness
+    is checked on the low 64 bits (distinct there implies distinct)."""
+    fr = spec.fr
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, 1 << 16, size=(n, fr.nlimbs), dtype=np.uint32)
+    top_bits = fr.bits - 1 - 16 * (fr.nlimbs - 1)
+    out[:, -1] &= (1 << top_bits) - 1
+    low = np.zeros(n, np.uint64)
+    for i in range(4):
+        low |= out[:, i].astype(np.uint64) << np.uint64(16 * i)
+    if np.unique(low).size != n:
+        raise ValueError(f"seed {seed} gives repeated scalars; pick another")
+    return out
+
+
+def class_coefficients(spec: CurveSpec, scalars: np.ndarray,
+                       nclasses: int = LARGE_PARAM) -> list[int]:
+    """Per-class scalar sums mod r for points tiled with period `nclasses`
+    (point i is class i % nclasses): the MSM then equals
+    sum_j coeff_j * P_j over the unique points.  Column sums of 16-bit
+    limbs stay exact in int64 for up to 2^47 points per class."""
+    s = np.asarray(scalars, dtype=np.int64)
+    n, nl = s.shape
+    pad = -n % nclasses
+    if pad:
+        s = np.concatenate([s, np.zeros((pad, nl), np.int64)])
+    cols = s.reshape(-1, nclasses, nl).sum(axis=0)       # (nclasses, Ls)
+    r = spec.fr.p
+    return [
+        sum(int(v) << (16 * i) for i, v in enumerate(row)) % r for row in cols
+    ]
+
+
+def class_msm_oracle(spec: CurveSpec, class_points, scalars: np.ndarray):
+    """Expected affine MSM of scalars over points tiled with period
+    len(class_points): the coefficient-sum MSM over the point classes,
+    with direct sums and no closed form.  The sums are reduced mod r, so
+    the points must lie in the r-order subgroup (`ECOracle.random_point`
+    samples there)."""
+    coeffs = class_coefficients(spec, scalars, len(class_points))
+    return ECOracle(spec).msm(class_points, coeffs)

@@ -9,17 +9,19 @@ pipelines ONE primitive against host I/O with two HBM buffers
 executes, the NTT of batch k+1 is already dispatched (JAX async dispatch
 is the task queue, msm_hw_code.rs:19-25 analog).
 
-Single-chip: FusedNTT blocked u16 residency feeding the fused lanes-major
+Single device: the flat (n, L) NTT plan feeding the (N, 2, L) Pippenger
 MSM.  Distributed: DistributedNTT (all_to_all stage exchange) feeding
 DistributedMSM (dp-sharded scan + all_gather reduce) over one mesh.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .curves.ops import Curve
+from .fields.mont import Field
 from .fields.spec import FieldSpec
 from .msm import MSM, MSMConfig
 from .ntt import make_ntt
@@ -59,38 +61,35 @@ class ProofPipeline:
             self.msm = MSM(curve, config)
             self.dntt = self.dmsm = None
 
-    # ------------------------------------------------------- single-chip
-    def _spectral_to_scalars_blocked(self, yb):
-        """Blocked (K/B, L, B) u16 spectral -> lanes-major (L, 2^m)
-        u16 scalars (the fused MSM's resident scalar layout) — a pure
-        device-side relayout of the first 2^msm_logn entries."""
-        rows = (1 << self.msm_logn) // self.plan.block
-        sl = yb[:rows]                          # (rows, L, B)
-        return jnp.moveaxis(sl, 1, 0).reshape(self.fr.nlimbs, -1)
+    # ----------------------------------------------------- single device
+    @functools.cached_property
+    def _scalars_of(self):
+        """Jitted spectral (2^n, L) Montgomery -> canonical (2^m, L) MSM
+        scalars: the first 2^msm_logn values, out of Montgomery form."""
+        f = Field(self.fr)
+        m = 1 << self.msm_logn
+        return jax.jit(lambda y: f.from_mont(y[:m]))
 
-    def run_batches(self, coeff_batches, points_resident,
+    def run_batches(self, coeff_batches, points_mont,
                     window_bits: int | None = None):
-        """The 2-deep cross-primitive pipeline (single-chip path).
+        """The 2-deep cross-primitive pipeline (single-device path).
 
-        coeff_batches: iterable of blocked (2^n/128, L, 128) u16 coeff
-        buffers (Montgomery form — or canonical; scalars are taken as the
-        canonical NTT of canonical inputs, see NTTClient notes).
-        points_resident: fused-path resident points for 2^msm_logn bases.
+        coeff_batches: iterable of (2^n, L) uint32 Montgomery coefficient
+        buffers.  points_mont: (2^m, 2, L) affine Montgomery bases.
         Yields one (3, L) projective MSM result per batch; batch k+1's
         NTT is dispatched before batch k's MSM is waited on.
         """
         if self.plan is None:
             raise ValueError("mesh pipeline uses run_dist")
-        pending = []                      # (ntt_out, msm_result) in flight
-        for xb in coeff_batches:
-            yb = self.plan.ntt16b(jnp.asarray(xb))          # dispatch NTT k
-            scal = self._spectral_to_scalars_blocked(yb)
-            # drop the 4 GiB spectral buffer's ref NOW: the scalar slice
-            # is its own (much smaller) buffer once the relayout executes,
-            # and holding yb through the MSM dispatch pushes the 2-deep
-            # peak past a 16 GiB chip (measured RESOURCE_EXHAUSTED)
-            del yb
-            res = self.msm(points_resident, scal,
+        pending = []                      # MSM results in flight
+        for x in coeff_batches:
+            y = self.plan.ntt(jnp.asarray(x))               # dispatch NTT k
+            scal = self._scalars_of(y)
+            # drop the spectral buffer's ref now: the scalar slice is its
+            # own (smaller) buffer, and holding y through the MSM dispatch
+            # raises the 2-deep peak by one full NTT buffer
+            del y
+            res = self.msm(points_mont, scal,
                            window_bits=window_bits)         # dispatch MSM k
             pending.append(res)
             # 2-deep: wait for the OLDEST once two are in flight — batch
@@ -115,12 +114,8 @@ class ProofPipeline:
         yk = self.dntt.ntt(coeffs)                      # (n1, n2, L) k-matrix
         ynat = self.dntt.spectral_to_natural(yk)        # (2^n, L)
         scalars = jnp.asarray(ynat[: 1 << self.msm_logn])
-        # spectral values are Montgomery-form here (dist path keeps mont);
-        # scalars must be canonical integers: convert via the field
-        from .fields.mont import Field
-
-        f = Field(self.fr)
-        scalars = f.from_mont(scalars)
+        # spectral values are Montgomery-form; scalars must be canonical
+        scalars = Field(self.fr).jit_op("from_mont")(scalars)
         if scalar_mask is not None:
             # per-limb bit mask (e.g. [0xFF, 0, ...] keeps 8 live scalar
             # bits): lets compile-light dry runs keep the full composition
@@ -134,19 +129,22 @@ def geometric_msm_oracle(curve_spec, npoints_unique: int, n: int, w: int,
     """Expected MSM for scalars s_i = w^i over period-tiled points.
 
     With points tiled with period U (the reference's own large-size test
-    trick, tests/msm/mod.rs:23-31), the class coefficient of unique point
-    j is the closed-form geometric sum
-        c_j = w^j * ((w^(U*M) - 1) / (w^U - 1)),  M = n / U
-    so a 2^24-scale pipeline result is oracle-checkable with a 256-point
-    host MSM.  Returns the affine expected point.
+    trick, tests/msm/mod.rs:23-31), class j holds the M_j = ceil((n-j)/U)
+    indices j, j+U, ..., so its coefficient is the closed-form geometric
+    sum
+        c_j = w^j * ((w^(U*M_j) - 1) / (w^U - 1))
+    and a 2^24-scale pipeline result is oracle-checkable with a U-point
+    host MSM.  Needs w^U != 1.  When n is the NTT size and U divides it,
+    every c_j is 0 (a full sum of roots of unity): take n shorter than
+    the NTT, or a U that does not divide n.  Returns the affine point.
     """
     from .oracle import ECOracle
 
     p = curve_spec.fr.p
-    U, M = npoints_unique, n // npoints_unique
-    assert U * M == n
-    num = (pow(w, U * M, p) - 1) % p
-    den = (pow(w, U, p) - 1) % p
-    ratio = (num * pow(den, -1, p)) % p
-    coeffs = [(pow(w, j, p) * ratio) % p for j in range(U)]
+    U = npoints_unique
+    den_inv = pow((pow(w, U, p) - 1) % p, -1, p)
+    coeffs = []
+    for j in range(U):
+        m_j = -(-(n - j) // U)
+        coeffs.append(pow(w, j, p) * (pow(w, U * m_j, p) - 1) * den_inv % p)
     return ECOracle(curve_spec).msm(base_points, coeffs)

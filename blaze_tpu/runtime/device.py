@@ -2,7 +2,7 @@
 
 The reference's DriverClient opens three XDMA character devices per card
 slot and exposes register/DMA I/O, bitstream loading, firewalls and CMS
-sensors (`/root/reference/src/driver_client/dclient.rs:50-151`).  On TPU
+sensors (`reference/src/driver_client/dclient.rs:50-151`).  On the GPU
 the PJRT runtime replaces the transport; what remains useful is:
 
   * connection: pick a device / build a mesh (the slot-id analog,
@@ -95,7 +95,7 @@ class DeviceContext:
     # ----------------------------------------------------------- profiler
     @contextlib.contextmanager
     def profile(self, trace_dir: str):
-        """Capture a device profile around a block — the TPU analog of the
+        """Capture a device profile around a block — the device analog of the
         reference's hardware perf counters (per-phase busy/total clocks and
         FIFO occupancy, msm_hw_code.rs:35-54).  Writes a TensorBoard /
         Perfetto trace with per-kernel device times to `trace_dir`:

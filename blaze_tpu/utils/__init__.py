@@ -6,7 +6,7 @@ from .errors import (
     LoadFailed,
     NotReady,
 )
-from .misc import elide_payload, hard_sync, retry
+from .misc import elide_payload
 
 __all__ = [
     "BlazeError",
@@ -16,6 +16,4 @@ __all__ = [
     "LoadFailed",
     "NotReady",
     "elide_payload",
-    "hard_sync",
-    "retry",
 ]

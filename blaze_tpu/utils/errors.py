@@ -3,7 +3,7 @@
 The reference defines one thiserror enum wrapping I/O failures, readiness
 gates and bad parameters plus a crate-wide Result alias
 (`/root/reference/src/error.rs:4-32`).  Python exceptions play both roles;
-the variants map 1:1 where the concept survives the FPGA→TPU move:
+the variants map 1:1 where the concept survives the move from FPGA to a JAX device:
 
   WriteError/ReadError (io + offset)  -> DeviceError (wraps the jax/XLA error)
   HBICAPNotReady                      -> NotReady (engine busy / buffer empty)

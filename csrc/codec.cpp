@@ -92,44 +92,3 @@ void blz_transpose(const uint8_t* src, uint8_t* dst, size_t rows, size_t cols,
 }
 
 }  // extern "C"
-
-extern "C" {
-
-// Blocked NTT boundary layout: (K, L) u16 row-major elements ->
-// (K/T, L, T): out[r][l][c] = in[r*T + c][l].  This is the host-side
-// marshalling of the client's at-scale residency (the preprocess analog,
-// ntt_data.rs:80-111) — one tile-friendly transpose per T-row block.
-void blz_to_blocked(const uint16_t* src, uint16_t* dst, size_t k, int l,
-                    int t) {
-  const size_t lt = static_cast<size_t>(l) * t;
-  for (size_t r = 0; r < k / t; ++r) {
-    const uint16_t* s = src + r * lt;      // (t, l) block
-    uint16_t* d = dst + r * lt;            // (l, t) block
-    // j-outer: writes are contiguous, reads stride one element row (the
-    // whole block is ~4 KB at l=16, t=128 — L1-resident)
-    for (int j = 0; j < l; ++j) {
-      uint16_t* out = d + static_cast<size_t>(j) * t;
-      for (int c = 0; c < t; ++c) {
-        out[c] = s[static_cast<size_t>(c) * l + j];
-      }
-    }
-  }
-}
-
-// Inverse: blocked (K/T, L, T) -> (K, L) row-major elements.
-void blz_from_blocked(const uint16_t* src, uint16_t* dst, size_t k, int l,
-                      int t) {
-  const size_t lt = static_cast<size_t>(l) * t;
-  for (size_t r = 0; r < k / t; ++r) {
-    const uint16_t* s = src + r * lt;      // (l, t) block
-    uint16_t* d = dst + r * lt;            // (t, l) block
-    for (int c = 0; c < t; ++c) {
-      uint16_t* row = d + static_cast<size_t>(c) * l;
-      for (int j = 0; j < l; ++j) {
-        row[j] = s[static_cast<size_t>(j) * t + c];
-      }
-    }
-  }
-}
-
-}  // extern "C"

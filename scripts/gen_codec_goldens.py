@@ -15,8 +15,6 @@ Layouts covered (element = 32 B little-endian, as ntt_data.rs:66):
   * banks   — element i -> bank i % 16, order preserved per bank
               (the hbm_addrs strided scatter, ntt_data.rs:9-31,80-111)
   * transpose — (rows, cols) element matrix -> (cols, rows)
-  * blocked — (K, L) u16 rows -> (K/block, L, block) tile-native layout
-              (the NTTClient 2^27 residency format, ntt/fused.py)
 
 Usage: python scripts/gen_codec_goldens.py
 Writes tests/fixtures/codec_*.bin.
@@ -27,8 +25,6 @@ import random
 ELEM = 32          # bytes per element
 NBANKS = 16
 NELEMS = 1024      # input elements
-L = ELEM // 2      # u16 limbs per element
-BLOCK = 128
 ROWS, COLS = 16, 64
 
 
@@ -51,19 +47,6 @@ def main():
         elem(r * COLS + c) for c in range(COLS) for r in range(ROWS)
     )
 
-    # blocked: out[rb][l][t] = u16 limb l of element rb*BLOCK + t
-    u16 = [
-        int.from_bytes(data[2 * i : 2 * i + 2], "little")
-        for i in range(NELEMS * L)
-    ]
-    blocked = bytearray()
-    for rb in range(NELEMS // BLOCK):
-        for limb in range(L):
-            for t in range(BLOCK):
-                blocked += u16[(rb * BLOCK + t) * L + limb].to_bytes(
-                    2, "little"
-                )
-
     fixdir = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "tests", "fixtures",
@@ -73,7 +56,6 @@ def main():
         ("codec_input.bin", data),
         ("codec_banks.bin", banks),
         ("codec_transposed.bin", transposed),
-        ("codec_blocked.bin", bytes(blocked)),
     ]:
         with open(os.path.join(fixdir, name), "wb") as f:
             f.write(blob)

@@ -1,8 +1,8 @@
 """Per-process worker for the 2-process localhost jax.distributed test.
 
 Exercises the REAL multi-host bootstrap path (dist/mesh.py
-init_distributed -> jax.distributed.initialize) that a TPU pod deployment
-uses, on CPU: 2 processes x 2 virtual devices = a 4-device global mesh,
+init_distributed -> jax.distributed.initialize) that a multi-host
+deployment uses, on CPU: 2 processes x 2 virtual devices = a 4-device global mesh,
 one data-parallel MSM sharded over it, oracle-checked in every process.
 This is the measurement surface the reference cannot have (it is
 single-card; multi-card orchestration is explicitly left to "the
@@ -25,17 +25,6 @@ os.environ["XLA_FLAGS"] = (
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
-# Per-process persistent cache: two processes sharing one cache dir can
-# hit the concurrent read-while-write zstd segfault (see tests/conftest.py).
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 f".jax_cache_mh{PID}"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
@@ -43,8 +32,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from blaze_tpu.dist import DistributedMSM, init_distributed, make_mesh  # noqa: E402
 from blaze_tpu.curves import CURVES, Curve  # noqa: E402
-from blaze_tpu.fields.mxu import portable_only  # noqa: E402
 from blaze_tpu.oracle import tiled_msm_instance  # noqa: E402
+from blaze_tpu.utils.cache import setup_compile_cache  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+# Per-process cache directory: two processes reading and writing one
+# cache directory at once have crashed in its decompression.
+setup_compile_cache(subdir=f"mh{PID}")
 
 
 def main() -> int:
@@ -66,8 +60,7 @@ def main() -> int:
     scal[:, 0] &= 0xFF
     scal[:, 1:] = 0
 
-    with portable_only():
-        pts_mont = np.asarray(curve.fq.to_mont(jnp.asarray(points)))
+    pts_mont = np.asarray(curve.fq.to_mont(jnp.asarray(points)))
 
     # every process holds the same global input; shards materialize only
     # on addressable devices
@@ -83,11 +76,10 @@ def main() -> int:
 
     dmsm = DistributedMSM(curve, mesh, axis="dp")
     # AOT-compile FIRST, then rendezvous: gloo's collective-context
-    # handshake times out after 30 s, and on a 1-vCPU box the other
+    # handshake times out after 30 s, and on a loaded host the other
     # process can easily still be compiling when this one executes.
-    with portable_only():
-        run2 = jax.jit(lambda p, s: dmsm._run(p, s, 4, 8, False))
-        compiled = run2.lower(pts, sc).compile()
+    run2 = jax.jit(lambda p, s: dmsm._run(p, s, 4, 8))
+    compiled = run2.lower(pts, sc).compile()
     from jax._src import distributed as _dist
 
     _dist.global_state.client.wait_at_barrier("blz_compiled", 900_000)
@@ -97,9 +89,8 @@ def main() -> int:
     # oracle check (host bigint) in every process
     from blaze_tpu.oracle import ECOracle
 
-    with portable_only():
-        aff = curve.to_affine(np.asarray(out)[None])[0]
-        got = (curve.fq.to_int(aff[0]), curve.fq.to_int(aff[1]))
+    aff = curve.to_affine(np.asarray(out)[None])[0]
+    got = (curve.fq.to_int(aff[0]), curve.fq.to_int(aff[1]))
     pts_int = [
         (
             int(sum(int(v) << (16 * i) for i, v in enumerate(p[0]))),

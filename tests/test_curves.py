@@ -177,45 +177,3 @@ def test_wire_sizes_match_reference():
     assert CURVES["bls12_377"].result_bytes == 144
     assert CURVES["bn254"].point_bytes == 64
     assert CURVES["bn254"].result_bytes == 96
-
-
-def test_ec_kernels_interpret_scan_and_reduce():
-    """The fused EC kernels (int8 REDC field layer, lazy < 2p invariant)
-    in Pallas interpreter mode vs the portable group law — the CPU-side
-    validation of the exact bodies the TPU executes."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from blaze_tpu.curves import CURVES, Curve
-    from blaze_tpu.curves.kernels import ECKernels
-    from blaze_tpu.oracle import tiled_msm_instance
-
-    spec = CURVES["bls12_381"]
-    curve = Curve(spec)
-    kern = ECKernels.for_curve(spec, tile=128, interpret=True)
-    L = spec.fq.nlimbs
-    C, B = 3, 128
-    points, _, _, _ = tiled_msm_instance(spec, C * B, seed=21)
-    pts = np.asarray(curve.fq.to_mont(jnp.asarray(points)))  # (C*B, 2, L)
-    xy = (pts[:, 0].astype(np.uint32)
-          | (pts[:, 1].astype(np.uint32) << 16))             # (C*B, L)
-    rows = jnp.asarray(
-        np.ascontiguousarray(xy.reshape(C, B, L).transpose(0, 2, 1))
-    )  # (C, L, B) u32 xy-packed
-
-    emitted, tot = kern.scan_mixed(rows)
-
-    def canon(x):
-        return np.asarray(
-            curve.fq._cond_sub_p(jnp.asarray(x, jnp.uint32),
-                                 jnp.zeros(np.asarray(x).shape[:-1],
-                                           jnp.uint32))
-        )
-
-    acc = np.broadcast_to(np.asarray(curve.identity()), (B, 3, L)).copy()
-    for c in range(C):
-        step = pts.reshape(C, B, 2, L)[c]
-        acc = np.asarray(curve.add_mixed(jnp.asarray(acc), jnp.asarray(step)))
-    want = canon(acc)                                       # (B, 3, L)
-    got = canon(np.moveaxis(np.asarray(tot).reshape(3, L, B), -1, 0))
-    assert np.array_equal(got, want)

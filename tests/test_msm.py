@@ -93,104 +93,26 @@ def test_msm_zero_and_dup_scalars():
     assert got == expected
 
 
-def test_fused_msm_interpret_matches_oracle():
-    """The COMPLETE fused-kernel MSM path (digits -> sort -> MXU hist ->
-    Pallas scan -> fused bucket reduction -> Horner fold) under the
-    Pallas interpreter on CPU, vs the host oracle — the chip path's
-    full-algorithm CPU validation."""
-    import jax.numpy as jnp
-    import numpy as np
+@pytest.mark.parametrize("curve_name", ["bn254", "bls12_377", "bls12_381"])
+def test_msm_client_random_distinct_scalars(curve_name):
+    """MSMClient on wire bytes with DISTINCT random scalars over points
+    tiled with period 16, vs the coefficient-sum oracle (no closed form)."""
+    from blaze_tpu.curves import encode_affine_points, encode_scalars
+    from blaze_tpu.oracle import class_msm_oracle, random_scalar_limbs
+    from blaze_tpu.runtime import MSMClient, MSMInit, MSMInput, MSMParams
+    from chip_smoke import _affine_of
 
-    from blaze_tpu.curves import CURVES, Curve
-    from blaze_tpu.msm import MSM, MSMConfig
-    from blaze_tpu.oracle import tiled_msm_instance
-
-    spec = CURVES["bn254"]
-    curve = Curve(spec)
-    msm = MSM(curve, MSMConfig(fused="on", interpret=True, kernel_tile=128))
-    n, c = 128, 6
-    points, scalars, exp_aff, _ = tiled_msm_instance(spec, n, seed=31)
-    # few live bits: the interpreter executes every lane serially
-    scal = np.asarray(scalars).copy()
-    scal[:, 0] &= 0xFFF
-    scal[:, 1:] = 0
-    from blaze_tpu.oracle import ECOracle
-
-    pts_int = [
-        (
-            int(sum(int(v) << (16 * i) for i, v in enumerate(p[0]))),
-            int(sum(int(v) << (16 * i) for i, v in enumerate(p[1]))),
-        )
-        for p in np.asarray(points)
-    ]
-    expected = ECOracle(spec).msm(pts_int, [int(s[0]) for s in scal])
-
-    pts = curve.fq.to_mont(jnp.asarray(points))
-    out = msm(pts, jnp.asarray(scal), window_bits=c, scalar_bits=12)
-    aff = curve.to_affine(out[None])[0]
-    got = (curve.fq.to_int(aff[0]), curve.fq.to_int(aff[1]))
-    assert got == expected
-
-
-def test_signed_recode_exact():
-    """Balanced digits reconstruct the scalar exactly: sum of
-    (-1)^sign * mag * 2^(c*w) == scalar, mags <= 2^(c-1), incl. the
-    all-ones top-edge scalar."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from blaze_tpu.msm import MSM
-    from blaze_tpu.curves import CURVES, Curve
-
-    msm = MSM(Curve(CURVES["bn254"]))
-    c, nwin, bits = 8, 4, 31
-    rng = np.random.default_rng(2)
-    vals = [int(v) for v in rng.integers(0, 1 << bits, size=64)]
-    vals += [0, 1, (1 << bits) - 1, (1 << (bits - 1))]
-    digits = np.stack(
-        [np.array([(v >> (c * w)) & ((1 << c) - 1) for v in vals],
-                  dtype=np.uint32) for w in range(nwin)]
-    )
-    mag, sgn = msm._signed_recode(jnp.asarray(digits), c)
-    mag, sgn = np.asarray(mag, dtype=np.int64), np.asarray(sgn)
-    assert mag.max() <= 1 << (c - 1)
-    for i, v in enumerate(vals):
-        got = sum(
-            int(mag[w, i]) * (-1 if sgn[w, i] else 1) * (1 << (c * w))
-            for w in range(nwin)
-        )
-        assert got == v, (i, v, got)
-
-
-def test_fused_msm_interpret_signed_digits():
-    """Signed-digit (balanced-window) fused MSM under the interpreter vs
-    the host oracle — halved buckets, in-kernel Y negation."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from blaze_tpu.curves import CURVES, Curve
-    from blaze_tpu.msm import MSM, MSMConfig
-    from blaze_tpu.oracle import ECOracle, tiled_msm_instance
-
-    spec = CURVES["bn254"]
-    curve = Curve(spec)
-    msm = MSM(curve, MSMConfig(fused="on", interpret=True, kernel_tile=128,
-                               signed_digits=True))
-    n, c = 128, 6
-    points, scalars, _, _ = tiled_msm_instance(spec, n, seed=53)
-    scal = np.asarray(scalars).copy()
-    scal[:, 0] &= 0x7FF                       # 11 live bits <= c*nwin - 1
-    scal[:, 1:] = 0
-    pts_int = [
-        (
-            int(sum(int(v) << (16 * i) for i, v in enumerate(p[0]))),
-            int(sum(int(v) << (16 * i) for i, v in enumerate(p[1]))),
-        )
-        for p in np.asarray(points)
-    ]
-    expected = ECOracle(spec).msm(pts_int, [int(s[0]) for s in scal])
-    pts = curve.fq.to_mont(jnp.asarray(points))
-    out = msm(pts, jnp.asarray(scal), window_bits=c, scalar_bits=12)
-    aff = curve.to_affine(out[None])[0]
-    got = (curve.fq.to_int(aff[0]), curve.fq.to_int(aff[1]))
-    assert got == expected
+    spec = CURVES[curve_name]
+    n, ncls = 64, 16
+    upts, _, _, dbg = tiled_msm_instance(spec, ncls, seed=81)
+    scalars = random_scalar_limbs(spec, n, seed=82)
+    client = MSMClient(MSMInit(curve=curve_name))
+    client.initialize(MSMParams(nof_elements=n))
+    client.set_data(MSMInput(
+        scalars=encode_scalars(scalars, spec),
+        points=encode_affine_points(upts[np.arange(n) % ncls], spec),
+    ))
+    client.start_process()
+    res = client.result()
+    assert _affine_of(res.result, spec) == class_msm_oracle(
+        spec, dbg["points"], scalars)

@@ -65,11 +65,11 @@ def test_codec_against_independent_goldens():
 
     fixdir = os.path.join(os.path.dirname(__file__), "fixtures")
     blobs = {}
-    for name in ("input", "banks", "transposed", "blocked"):
+    for name in ("input", "banks", "transposed"):
         with open(os.path.join(fixdir, f"codec_{name}.bin"), "rb") as f:
             blobs[name] = f.read()
     data = blobs["input"]
-    nelems, elem, nbanks, block = 1024, 32, 16, 128
+    nelems, elem, nbanks = 1024, 32, 16
     L = elem // 2
 
     for use_native in (True, False):
@@ -91,27 +91,5 @@ def test_codec_against_independent_goldens():
             want = np.frombuffer(data, dtype="<u2").reshape(nelems, L)
             assert np.array_equal(limbs, want.astype(np.uint32))
             assert limbs_to_bytes(limbs, elem) == data
-
-            xb = codec_mod.to_blocked(want.astype(np.uint16), block)
-            assert xb.astype("<u2").tobytes() == blobs["blocked"], (
-                f"native={use_native}"
-            )
-            back = codec_mod.from_blocked(xb, block)
-            assert np.array_equal(back, want)
         finally:
             codec_mod._LIB = saved
-
-
-def test_blocked_roundtrip_matches_numpy():
-    """Native blocked split/merge == the pure-numpy layout transform."""
-    import numpy as np
-
-    from blaze_tpu.native import codec
-
-    rng = np.random.default_rng(0)
-    x = rng.integers(0, 1 << 16, size=(1024, 16), dtype=np.uint16)
-    xb = codec.to_blocked(x, 128)
-    want = np.ascontiguousarray(x.reshape(8, 128, 16).swapaxes(1, 2))
-    assert np.array_equal(xb, want)
-    back = codec.from_blocked(xb, 128)
-    assert np.array_equal(back, x)

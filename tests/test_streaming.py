@@ -65,14 +65,14 @@ def test_msm_streaming_chunks(monkeypatch):
     assert not client.is_msm_engine_ready()
     assert client.pending_tasks == 1
 
-    real_sync = C.hard_sync
+    real_sync = C.jax.block_until_ready
     syncs = []
 
     def counting_sync(x):
         syncs.append(1)
         return real_sync(x)
 
-    monkeypatch.setattr(C, "hard_sync", counting_sync)
+    monkeypatch.setattr(C.jax, "block_until_ready", counting_sync)
 
     with pytest.raises(NotReady):
         client.wait_result()                     # nothing fed yet
@@ -114,6 +114,31 @@ def test_msm_streaming_scalars_only_from_cache():
         client.set_data(MSMInput(scalars=sraw[i * sb:(i + step) * sb]))
     res = client.result()
     check(res.result, expected)
+
+
+def test_msm_streaming_random_distinct_scalars():
+    """Streamed chunks of DISTINCT random scalars over points tiled with
+    period 8, vs the coefficient-sum oracle."""
+    from blaze_tpu.oracle import (
+        class_msm_oracle, random_scalar_limbs, tiled_msm_instance,
+    )
+
+    spec = CURVES[CURVE]
+    n, step, ncls = 64, 16, 8
+    upts, _, _, dbg = tiled_msm_instance(spec, ncls, seed=63)
+    scalars = random_scalar_limbs(spec, n, seed=64)
+    praw = encode_affine_points(upts[np.arange(n) % ncls], spec)
+    sraw = encode_scalars(scalars, spec)
+    pb, sb = spec.point_bytes, spec.scalar_bytes
+
+    client = MSMClient(MSMInit(curve=CURVE))
+    client.initialize(MSMParams(nof_elements=n))
+    client.start_process()
+    for i in range(0, n, step):
+        client.set_data(MSMInput(scalars=sraw[i * sb:(i + step) * sb],
+                                 points=praw[i * pb:(i + step) * pb]))
+    check(client.result().result,
+          class_msm_oracle(spec, dbg["points"], scalars))
 
 
 def test_msm_streaming_precompute():
